@@ -1,5 +1,5 @@
 '''Benchmark example — DELEGATES to the root harness (bench.py) so
-contributors measure exactly what the driver measures (one warmup +
+contributors measure exactly what bench.py measures (one warmup +
 self-tuned sustained timed region with a single amortized sync; see
 bench.py's module docstring for the methodology and how it maps onto
 the reference's exams/benchmark.py:25-38).
@@ -11,14 +11,12 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), '..'))
 
-import jax
-
-jax.config.update('jax_compilation_cache_dir', '/tmp/ptina_jax_cache')
-jax.config.update('jax_persistent_cache_min_compile_time_secs', 0.3)
-jax.config.update('jax_persistent_cache_enable_xla_caches', 'all')
-
 import bench
 from ptina_tpu import scenes
+from ptina_tpu.utils.cache import setup_compile_cache
+
+bench._device()
+setup_compile_cache()
 
 name = sys.argv[1] if len(sys.argv) > 1 else 'cornell_monkey'
 spp = int(sys.argv[2]) if len(sys.argv) > 2 else 32

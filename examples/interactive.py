@@ -1,5 +1,5 @@
 '''
-Headless progressive-refinement loop — the TPU-native counterpart of the
+Headless progressive-refinement loop — the counterpart of the
 reference's interactive viewport (ptina/blender.py:714-784 semantics and
 exams/interactive.py): render starts at a coarse resolution
 (start_pixel_size-for-1 blocks), each completed pass halves the block
@@ -8,7 +8,7 @@ accumulating samples progressively.  Camera moves (here: a scripted
 orbit) reset the refinement.
 
 Writes refine_<step>.png snapshots instead of blitting to a GL window
-(no display on TPU pods).
+(no display on a headless render host).
 '''
 
 import os

@@ -22,7 +22,7 @@ Architecture notes (vs the reference):
     duck-typed (parse_node_value, principled_to_material,
     light_to_pool_entry, world_background, ViewportRefiner,
     classify_updates) so it is unit-tested headlessly
-    (tests/test_blender_logic.py) — bpy never exists on a TPU pod.
+    (tests/test_blender_logic.py) — bpy never exists on a render host.
   * The reference needs a daemon thread because Taichi is thread-affine
     (ptina/tools/mtworker.py); jax is not, but render calls are still
     serialized through utils.daemon.DaemonModule for orderly film access
@@ -218,7 +218,7 @@ def _build_engine_class():
     class PtinaRenderEngine(bpy.types.RenderEngine):
         '''reference TinaRenderEngine (blender.py:283-806).'''
         bl_idname = 'PTINA_TPU'
-        bl_label = 'Ptina TPU'
+        bl_label = 'Ptina'
         bl_use_preview = True
 
         def __init__(self):
@@ -581,7 +581,7 @@ def register():
 
     class PTINA_RENDER_PT_sampling(bpy.types.Panel):
         '''reference TinaRenderPanel (blender.py:904-920).'''
-        bl_label = 'Ptina TPU Sampling'
+        bl_label = 'Ptina Sampling'
         bl_space_type = 'PROPERTIES'
         bl_region_type = 'WINDOW'
         bl_context = 'render'

@@ -17,7 +17,6 @@ __all__ = ['Config', 'DEFAULT']
 class Config:
     # --- engine selection (reference worker.py:6-7, tree/__init__.py:5-6) ---
     engine: str = 'path'          # 'path' | 'brute' | 'mlt'
-    accel: str = 'auto'           # 'auto' | 'dense' | 'blocked'
     material_model: str = 'disney'  # 'disney' | 'lambert' | 'mirror' | 'phong'
 
     # --- integrator (reference engine/path.py:25, mltpath.py:25-28) ---

@@ -13,54 +13,20 @@ import functools
 import jax
 import jax.numpy as jnp
 
-from ptina_tpu.engine.path import (render_sample, pixel_grid, PATH_DIMS)
-from ptina_tpu.camera import camera_rays
-from ptina_tpu.sampling.sobol import sample_dims
-from ptina_tpu.film import new_film, film_to_image, film_add
+from ptina_tpu.engine.path import render_sample
+from ptina_tpu.film import new_film, film_to_image
 
 __all__ = ['render_image_diff', 'image_loss', 'material_grad',
            'texture_grad', 'inverse_render_step']
 
 
-def _sample_diff_fused(scene, film, sample_index, trace_diff):
-    '''One differentiable sample with the MEGAKERNEL forward: the
-    custom_vjp pairing (engine/fused.fused_trace_diff) renders the
-    primal with the fused kernel and recomputes the backward through
-    the wavefront integrator, so gradient renders stop paying the ~20x
-    wavefront forward cost where the megakernel is eligible.'''
-    _, _, nx, ny = film.shape
-    ii, jj = pixel_grid(nx, ny)
-    u = sample_dims(sample_index, ii, jj, PATH_DIMS)
-    x = (ii.astype(jnp.float32) + u[0]) / nx * 2.0 - 1.0
-    y = (jj.astype(jnp.float32) + u[1]) / ny * 2.0 - 1.0
-    ro, rd = camera_rays(scene.cam_v2w, x, y)
-    rad = trace_diff(scene, ro, rd, u)
-    return film_add(film, 0, rad.x, rad.y, rad.z, jnp.ones_like(rad.x))
-
-
-def render_image_diff(scene, nx, ny, sample_index=0, spp=1,
-                      _trace_diff=None):
+def render_image_diff(scene, nx, ny, sample_index=0, spp=1):
     '''Differentiable render: returns the [nx, ny, 3] mean-radiance image
-    as a traced function of the scene pytree.  Eligible scenes on TPU
-    run the megakernel forward + wavefront backward (see
-    _sample_diff_fused); others differentiate straight through the
-    wavefront integrator.'''
-    from ptina_tpu.engine.fused import fused_eligible, fused_trace_diff
+    as a traced function of the scene pytree, differentiating straight
+    through the wavefront integrator.'''
     film = new_film(nx, ny)
-    # _trace_diff: None = auto, False = force the wavefront path,
-    # callable = use it as the per-sample differentiable trace
-    trace_diff = _trace_diff
-    if trace_diff is None and fused_eligible(scene):
-        trace_diff = fused_trace_diff
-    if trace_diff is False:
-        trace_diff = None
     for s in range(spp):
-        if trace_diff is not None:
-            film = _sample_diff_fused(scene, film, sample_index + s,
-                                      trace_diff)
-        else:
-            # gradients flow through the wavefront path directly
-            film = render_sample(scene, film, sample_index + s, fused=False)
+        film = render_sample(scene, film, sample_index + s)
     return film_to_image(film)[..., :3]
 
 

@@ -8,7 +8,7 @@ mutation (sigma, wrapped mod 1), replays the path integrator with the
 chain's uniforms as the random stream, splats into the film, and
 Metropolis-accepts on luminance ratio.
 
-TPU-native differences:
+Differences from the reference:
   * chains are a dimension-major [D, C] array advanced by one jitted
     step — the reference's per-thread loop becomes whole-array ops, and
     each primary-sample dimension is a dense row feeding the SoA
@@ -37,7 +37,7 @@ shipped unnormalized behavior for parity.
 
 import functools
 
-import flax.struct
+from ptina_tpu.utils import struct
 import jax
 import jax.numpy as jnp
 
@@ -53,15 +53,15 @@ LSP = 0.25    # large-step probability (reference mltpath.py:25-28)
 SIGMA = 0.01  # mutation size
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class MLTState:
     x: jnp.ndarray      # [D, C] primary samples (dimension-major)
     l: V3               # cached radiance, [C] rows
     b_sum: jnp.ndarray  # [] running sum of large-step luminances
     b_cnt: jnp.ndarray  # [] number of large-step proposals seen
     step: jnp.ndarray   # [] i32 mutation-round counter (drives the
-    # wang-hash proposal streams; jax.random's threefry cost ~2.6 ms of
-    # a ~20 ms chain step for the same [D, C] block — round 5)
+    # wang-hash proposal streams, cheaper than jax.random's threefry
+    # for the same [D, C] block)
 
 
 def mlt_init(key, nchains=2 ** 18, ndims=PATH_DIMS):
@@ -79,16 +79,11 @@ def mlt_init(key, nchains=2 ** 18, ndims=PATH_DIMS):
 
 def _replay(scene, x):
     '''Trace the path encoded by primary samples x [D, C]
-    (reference mltpath.py:67-69: dims 0,1 are the lens).  Replay is
-    forward-only and uniforms-driven, so eligible scenes run the
-    whole-path megakernel with the chain state as the explicit random
-    stream (engine/fused.fused_trace_uniforms) — the reference's chains
-    run the same megakernel as its path engine (mltpath.py:54-83); the
-    wavefront integrator is the fallback.'''
+    (reference mltpath.py:67-69: dims 0,1 are the lens) through the
+    wavefront integrator, with the chain state as its random stream —
+    the reference's chains run the same kernel as its path engine
+    (mltpath.py:54-83).'''
     ro, rd = camera_rays(scene.cam_v2w, x[0] * 2.0 - 1.0, x[1] * 2.0 - 1.0)
-    from ptina_tpu.engine.fused import fused_eligible, fused_trace_uniforms
-    if fused_eligible(scene):
-        return fused_trace_uniforms(scene, ro, rd, x)
     return path_trace(scene, ro, rd, x)
 
 
@@ -137,9 +132,7 @@ def mlt_step(scene, state, film, lsp=LSP, sigma=SIGMA, mode='kelemen'):
         # complement; the normalization C / (b * npix) accumulates
         # uniformly in the sample-count channel so film_to_image's
         # rgb/w division produces actual radiance.  Both states ride
-        # ONE concatenated scatter: a 131k-splat scatter costs ~6 ms
-        # on this chip and scales sub-linearly, so merging the two
-        # halves saves ~4 ms per chain step (measured round 5).
+        # ONE concatenated scatter instead of two.
         w_new = accept / al_new
         w_old = (1.0 - accept) / al_old
         xi_n, yi_n = pix(x_new)

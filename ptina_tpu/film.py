@@ -8,10 +8,9 @@ sample count and paints empty pixels debug-pink (filmtable.py:52-63).
 Pass ids: 0 = Combined, 1 = Albedo, 2 = Normal (reference
 blender.py:591-595, things.py:19).
 
-Layout: channel-major ([P, 4, nx, ny], NOT [P, nx, ny, 4]) so the two
-minor axes are the large pixel axes — XLA:TPU pads the minor axes of
-every array to (8, 128) tiles, and a minor channel axis of 4 would store
-and move 32x the useful bytes on every accumulation.
+Layout: channel-major ([P, 4, nx, ny], NOT [P, nx, ny, 4]) so each
+channel is a dense pixel plane and the integrator's SoA radiance rows
+(utils/vec.py) accumulate into it without an interleave.
 '''
 
 import jax
@@ -68,7 +67,7 @@ def film_to_image(film, pass_id=0):
 def film_to_flat_rgb(film, pass_id=0):
     '''Device-side viewport export: normalize pass `pass_id` and return
     a flat [ny*nx*3] f32 buffer in scanline (y-major) order — ONE fused
-    kernel + one readback, the TPU counterpart of the reference's
+    kernel + one readback, the counterpart of the reference's
     fast_export_image kernel (ptina/filmtable.py:65-79).  Empty pixels
     export 0 (the GL blit path wants black, not debug pink).'''
     val = film[pass_id]                      # [4, nx, ny]

@@ -1,12 +1,15 @@
 '''
 Ray-scene intersection backends.
 
-  * brute:    dense MXU-friendly all-triangles test — the fast path for
-              benchmark-scale scenes (no gathers, no divergence).
-  * lbvh:     device-built Karras linear BVH (build) + batched stack
-              traversal (traverse) — the sublinear path for big scenes.
+  * dispatch:    the renderer's entry; picks the platform's cast.
+  * triton_cast: the GPU cast kernels (Pallas, Triton route).
+  * brute:       dense all-triangles test in plain XLA: the CPU cast and
+                 the reference the kernels are tested against.
+  * lbvh:        device-built Karras linear BVH (build) + batched stack
+                 traversal (traverse): a test oracle and the candidate
+                 sub-linear route for big scenes.
 
-Both implement the same contract:
+The dense casts implement the same contract:
     cast_closest(ro, rd, scene_tris, avoid) -> Hit
     cast_any(ro, rd, scene_tris, avoid, tmax) -> occluded mask
 '''

@@ -1,22 +1,24 @@
 '''
-Dense ray-triangle intersection on the MXU.
+Dense ray-triangle intersection in plain XLA: the reference cast.
 
 The reference traverses a BVH per thread with a 32-deep stack
-(reference: ptina/tree/lbvh.py:313-347, ptina/stack.py) — a shape TPUs
-cannot run well: per-lane control flow and per-lane gathers.  This module
-re-derives intersection as dense linear algebra instead:
+(reference: ptina/tree/lbvh.py:313-347, ptina/stack.py).  This module
+casts every ray against every triangle instead, as dense array work with
+no per-ray control flow.  It runs on the CPU, where it is the renderer's
+cast, and it is the plain reference that the GPU kernels
+(intersect/triton_cast.py) are tested against.
 
 Each triangle is precompiled (scene.precompute_tri_functionals) to a 3x4
 matrix M whose rows are affine functionals of a homogeneous point:
     M [p, 1]^T = [ n.p - n.v0 ,  u(p) ,  v(p) ]
-with n the (unnormalized) face normal and u/v barycentric coordinates.
+with n the unit face normal and u/v barycentric coordinates.
 For a ray o + t d:
     a = M [o, 1]^T      b = M [d, 0]^T
     t = -a0 / b0        u = a1 + t b1       v = a2 + t b2
-so one cast over N rays and F triangles is exactly two matmuls
-  [N, 4] @ [4, 3F]
-followed by elementwise tests and a masked min-reduction over F — all
-dense, MXU/VPU work with zero gathers (triangle data is broadcast).
+so one cast over N rays and F triangles is two [N, 4] @ [4, 3F]
+products, at full float32 precision (Precision.HIGHEST: a TF32 product
+keeps about three decimal digits of the plane offsets and barycentrics),
+followed by elementwise tests and a masked min-reduction over F.
 Triangles are processed in tiles with a running (t, index, uv) minimum to
 bound the [N, 3*TILE] intermediate.
 
@@ -29,7 +31,7 @@ from __future__ import annotations
 
 import functools
 
-import flax.struct
+from ptina_tpu.utils import struct
 import jax
 import jax.numpy as jnp
 
@@ -39,9 +41,10 @@ from ptina_tpu.utils.vec import V3
 __all__ = ['Hit', 'cast_closest', 'cast_any', 'TILE_F']
 
 TILE_F = 512  # triangles per tile; [N, 3*TILE_F] f32 intermediate
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Hit:
     hit: jnp.ndarray    # [N] bool
     t: jnp.ndarray      # [N] f32 (INF on miss)
@@ -73,8 +76,8 @@ def _tile_test(o4, d4, m_tile, base, avoid):
     o4, d4: [N, 4]; m_tile: [TF, 3, 4]; returns (t [N, TF], u, v).'''
     tf = m_tile.shape[0]
     mt = m_tile.reshape(tf * 3, 4).T  # [4, 3*TF]
-    a = jnp.dot(o4, mt, preferred_element_type=jnp.float32).reshape(-1, tf, 3)
-    b = jnp.dot(d4, mt, preferred_element_type=jnp.float32).reshape(-1, tf, 3)
+    a = jnp.dot(o4, mt, precision=HIGHEST).reshape(-1, tf, 3)
+    b = jnp.dot(d4, mt, precision=HIGHEST).reshape(-1, tf, 3)
     denom = b[..., 0]
     live = jnp.abs(denom) >= EPS
     t = -a[..., 0] / jnp.where(live, denom, 1.0)

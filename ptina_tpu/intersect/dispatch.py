@@ -1,20 +1,20 @@
 '''
-Backend dispatch for ray casts.
+Ray casts, routed by platform.
 
-On TPU the fused Pallas kernels (pallas_cast.py) are ~10-500x faster than
-the XLA blocked path; on CPU (tests, debugging) the XLA path is used —
-Mosaic kernels don't run there and interpret mode is slow.  The choice is
-made at trace time from jax.default_backend(), so each jit cache entry
-gets the right implementation with no runtime cost.
+Every cast of the renderer goes through this module.  The implementation
+is picked at trace time from the platform the computation is compiled
+for, so each jit cache entry gets its own and pays nothing at run time:
+
+  gpu   -> the Pallas kernels of intersect/triton_cast.py;
+  cpu   -> intersect/brute.py, the plain XLA cast, which is also the
+           reference the kernels are tested against;
+  other -> an error: there is no silent fallback.
+
+Rays are detached before the cast.  Intersections are constants of the
+estimator (engine/path._cast_and_shade), and the kernels have no VJP.
 
 All entry points speak SoA: rays are V3 component rows, results are
-dense [N] rows / V3 — nothing here materializes a minor-axis-3 array
-(see utils/vec.py for why that matters on TPU).
-
-`cast_shaded` is the preferred closest-hit entry: on TPU it returns the
-winner's interpolated shading attributes from the same kernel pass
-(normals/uvs/material id), eliminating the per-ray attribute gathers that
-dominate the XLA profile.
+dense [N] rows.
 '''
 
 import jax
@@ -22,112 +22,54 @@ import jax.numpy as jnp
 
 from ptina_tpu.utils.vec import V3, vnormalize
 from ptina_tpu.intersect import brute
-from ptina_tpu.intersect.pallas_cast import (
-    pallas_cast_closest, pallas_cast_any, pallas_cast_shade, MAX_VMEM_FACES,
-)
+from ptina_tpu.intersect.triton_cast import (triton_cast_closest,
+                                             triton_cast_any)
 
-__all__ = ['cast_closest', 'cast_any', 'cast_shaded', 'cast_shadow',
-           'MAX_DENSE_FACES']
-
-# Above this face count a scene auto-routes to the blocked two-level
-# cast (intersect/blocked.py) instead of the dense single-pass kernels.
-MAX_DENSE_FACES = MAX_VMEM_FACES
+__all__ = ['cast_closest', 'cast_any', 'cast_shaded', 'cast_shadow']
 
 
-def _use_pallas(nfaces):
-    return jax.default_backend() == 'tpu' and nfaces <= MAX_VMEM_FACES
+def _casts():
+    '''(closest, any) cast functions for the current platform.'''
+    platform = jax.default_backend()
+    if platform == 'gpu':
+        return triton_cast_closest, triton_cast_any
+    if platform == 'cpu':
+        return brute.cast_closest, brute.cast_any
+    raise NotImplementedError(f'no ray cast for platform {platform!r}')
 
 
-def _route(scene):
-    '''Trace-time accel selection for scene-level casts:
-    'pallas' (dense single-pass, TPU), 'blocked' (two-level, big
-    scenes / config.accel='blocked'), 'brute' (XLA, CPU tests).'''
-    f = scene.tri_w2b.shape[0]
-    tpu = jax.default_backend() == 'tpu'
-    if scene.accel == 'blocked':
-        return 'blocked'
-    if scene.accel == 'dense':
-        return 'pallas' if (tpu and f <= MAX_VMEM_FACES) else 'brute'
-    if tpu:
-        return 'pallas' if f <= MAX_DENSE_FACES else 'blocked'
-    return 'brute'
-
-
-def _blocked_interpret():
-    # the blocked Mosaic kernels only run on TPU; elsewhere (CPU tests
-    # with accel='blocked') fall back to the Pallas interpreter
-    return jax.default_backend() != 'tpu'
-
-
-def _as_v3(a):
-    return a if isinstance(a, V3) else V3.from_array(jnp.asarray(a))
+def _rays(ro, rd):
+    ro = ro if isinstance(ro, V3) else V3.from_array(jnp.asarray(ro))
+    rd = rd if isinstance(rd, V3) else V3.from_array(jnp.asarray(rd))
+    return jax.lax.stop_gradient((ro, rd))
 
 
 def cast_closest(ro, rd, tri_w2b, avoid):
-    ro, rd = _as_v3(ro), _as_v3(rd)
-    if _use_pallas(tri_w2b.shape[0]):
-        return pallas_cast_closest(ro, rd, tri_w2b, avoid)
-    return brute.cast_closest(ro, rd, tri_w2b, avoid)
+    '''Nearest hit (brute.cast_closest's contract) on the platform's cast.'''
+    ro, rd = _rays(ro, rd)
+    return _casts()[0](ro, rd, tri_w2b, avoid)
 
 
 def cast_any(ro, rd, tri_w2b, avoid, tmax):
-    ro, rd = _as_v3(ro), _as_v3(rd)
-    if _use_pallas(tri_w2b.shape[0]):
-        return pallas_cast_any(ro, rd, tri_w2b, avoid, tmax)
-    return brute.cast_any(ro, rd, tri_w2b, avoid, tmax)
-
-
-def _blocked_scene_tables(scene):
-    '''The scene's pre-packed block tables (make_scene computes them
-    once); falls back to packing here for scenes built without them
-    (e.g. accel='blocked' forced onto a small morton=False scene).'''
-    if scene.t5b is not None:
-        return scene.t5b, scene.attrsb
-    from ptina_tpu.intersect.blocked import blocked_tables
-    from ptina_tpu.scene import BLOCK_FACES
-    return blocked_tables(scene.tri_w2b, scene.tri_attrs, BLOCK_FACES)
+    '''Occlusion (brute.cast_any's contract) on the platform's cast.'''
+    ro, rd = _rays(ro, rd)
+    return _casts()[1](ro, rd, tri_w2b, avoid, jax.lax.stop_gradient(tmax))
 
 
 def cast_shadow(scene, ro, rd, avoid, tmax):
-    '''Occlusion cast routed by the scene's acceleration mode.'''
-    ro, rd = _as_v3(ro), _as_v3(rd)
-    if _route(scene) == 'blocked':
-        from ptina_tpu.intersect.blocked import blocked_cast_any
-        t5b, _ = _blocked_scene_tables(scene)
-        return blocked_cast_any(ro, rd, t5b, scene.block_bounds,
-                                avoid, tmax, interpret=_blocked_interpret())
+    '''Occlusion of shadow rays against the scene's faces.'''
     return cast_any(ro, rd, scene.tri_w2b, avoid, tmax)
 
 
 def cast_shaded(scene, ro, rd, avoid):
-    '''Closest hit + shading attributes, routed by the scene's
-    acceleration mode.  Returns (hit, normal V3 unit (not yet
-    two-sided-flipped), tex_s [N], tex_t [N], mtlid [N] i32
-    (-1 on miss/defaults)).'''
-    ro, rd = _as_v3(ro), _as_v3(rd)
-    route = _route(scene)
-    if route == 'blocked':
-        from ptina_tpu.intersect.blocked import blocked_cast_shade
-        t5b, attrsb = _blocked_scene_tables(scene)
-        hit, attrs = blocked_cast_shade(
-            ro, rd, t5b, attrsb, scene.block_bounds, avoid,
-            interpret=_blocked_interpret())
-        normal = vnormalize(V3(attrs[0], attrs[1], attrs[2]))
-        mtlid = jnp.round(attrs[5]).astype(jnp.int32)
-        mtlid = jnp.where(hit.hit, mtlid, -1)
-        return hit, normal, attrs[3], attrs[4], mtlid
-    if route == 'pallas':
-        hit, attrs = pallas_cast_shade(ro, rd, scene.tri_w2b, avoid,
-                                       scene.tri_attrs)
-        normal = vnormalize(V3(attrs[0], attrs[1], attrs[2]))
-        tex_s, tex_t = attrs[3], attrs[4]
-        mtlid = jnp.round(attrs[5]).astype(jnp.int32)
-        mtlid = jnp.where(hit.hit, mtlid, -1)
-        return hit, normal, tex_s, tex_t, mtlid
-    hit = brute.cast_closest(ro, rd, scene.tri_w2b, avoid)
+    '''Closest hit + shading attributes.  Returns (hit, normal V3 unit
+    (not yet two-sided-flipped), tex_s [N], tex_t [N], mtlid [N] i32
+    (-1 on miss)).  The winner's attributes are gathered and
+    interpolated here, after the cast.'''
+    hit = cast_closest(ro, rd, scene.tri_w2b, avoid)
     idx = jnp.maximum(hit.index, 0)
     w0 = 1.0 - hit.u - hit.v
-    nrm = scene.tri_nrm[idx]  # [N, 3, 3] gather (CPU path only)
+    nrm = scene.tri_nrm[idx]  # [N, 3, 3]
     uv = scene.tri_uv[idx]
     normal = vnormalize(V3.from_array(
         nrm[:, 0] * w0[:, None] + nrm[:, 1] * hit.u[:, None]

@@ -4,7 +4,7 @@ Linear BVH (Karras construction), built entirely on device.
 Counterpart of the reference's LBVH (ptina/tree/lbvh.py) with the same
 structure — 30-bit Morton codes over centroid AABB, sorted leaf order,
 Karras internal-node ranges/splits, bottom-up AABB fitting — but
-TPU-native in every step the reference does serially or on the host:
+on device in every step the reference does serially or on the host:
 
   * the Morton sort is jnp.argsort on device (the reference round-trips
     through numpy, lbvh.py:204-208);
@@ -23,16 +23,14 @@ child ids < n are leaves (sorted-order leaf slots), ids >= n are internal
 node (id - n).
 
 Traversal: `lbvh_traverse` advances every ray's fixed-depth stack in
-lockstep (one node visit per ray per iteration, masked).  It is the
-correctness/capability path for scenes too big for the fused dense
-Pallas kernel; its per-iteration gathers make it slower per visit than
-the dense kernel is per triangle, so the dense kernel remains the
-default below MAX_VMEM_FACES.
+lockstep (one node visit per ray per iteration, masked), in plain lax.
+No production cast route uses it yet: it is a test oracle for the dense
+casts and the candidate for a sub-linear large-mesh route.
 '''
 
 import functools
 
-import flax.struct
+from ptina_tpu.utils import struct
 import jax
 import jax.numpy as jnp
 
@@ -44,7 +42,7 @@ __all__ = ['LBVH', 'lbvh_build', 'lbvh_traverse', 'ray_aabb', 'STACK_DEPTH']
 STACK_DEPTH = 32  # matches the reference stack capacity (stack.py:11)
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class LBVH:
     leaf: jnp.ndarray    # [n] i32 face id per sorted leaf slot
     child: jnp.ndarray   # [n-1, 2] i32 child ids (< n leaf, >= n internal+n)
@@ -209,8 +207,8 @@ def _tri_hit(tri_w2b, fid, ro, rd):
     m = tri_w2b[fid]  # [N, 3, 4] gather
     o4 = jnp.concatenate([ro, jnp.ones_like(ro[:, :1])], 1)
     d4 = jnp.concatenate([rd, jnp.zeros_like(rd[:, :1])], 1)
-    a = jnp.einsum('nkc,nc->nk', m, o4)
-    b = jnp.einsum('nkc,nc->nk', m, d4)
+    a = jnp.einsum('nkc,nc->nk', m, o4, precision=jax.lax.Precision.HIGHEST)
+    b = jnp.einsum('nkc,nc->nk', m, d4, precision=jax.lax.Precision.HIGHEST)
     live = jnp.abs(b[:, 0]) >= EPS
     t = -a[:, 0] / jnp.where(live, b[:, 0], 1.0)
     u = a[:, 1] + t * b[:, 1]

@@ -6,7 +6,7 @@ SoA counterparts of the reference LightPool
 
 Structure: the light pool capacity L is a static shape and small (<= 64,
 typically 8), so the per-light tests are UNROLLED at trace time into
-pure elementwise [N]-row arithmetic — the TPU-native analogue of the
+pure elementwise [N]-row arithmetic — the wavefront analogue of the
 reference's in-kernel `for l in range(count)` loop.  No [N, L]
 intermediates, no minor-axis reductions, no gathers: everything fuses
 into the surrounding integrator.  Per-light constants are extracted with
@@ -32,9 +32,8 @@ def _slot_v3(table, l):
 def ray_sphere(ro, rd, center, radius2):
     '''Nearest positive sphere hit distance, 0.0 on miss
     (reference: ptina/geometries.py:158-178).  All args V3 / scalar rows.
-    This is THE sphere primitive (engine/fused.py re-traces it in-kernel;
-    tests hit it directly) — the one implementation of the reference's
-    Sphere.intersect.'''
+    This is THE sphere primitive (tests hit it directly) — the one
+    implementation of the reference's Sphere.intersect.'''
     op = center - ro
     b = vdot(op, rd)
     det = b * b + radius2 - vdot(op, op)
@@ -67,8 +66,8 @@ def lights_hit(lights, ro, rd):
     reference scans slots in order and stops at the FIRST hit, so with
     overlapping lights a farther list-earlier light can occlude a nearer
     one; here the NEAREST hit wins (same op count: the running-min
-    compare replaces the found-flag test).  engine/fused._lights_hit_k
-    mirrors this; tests/test_lights_film.py covers the overlap case.
+    compare replaces the found-flag test); tests/test_lights_film.py
+    covers the overlap case.
     ro, rd: V3 rows.  Returns dict(hit [N] bool, dis [N], pdf [N],
     color V3).'''
     L = lights.size.shape[0]

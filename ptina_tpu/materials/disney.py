@@ -6,7 +6,7 @@ Semantics follow the reference implementation closely
 re-expressed as masked whole-array arithmetic: for sampling, all three
 lobes (clearcoat / specular-with-transmission / diffuse) are evaluated on
 every lane and the per-lane result selected by the stream-split decision
-masks — the TPU-native counterpart of the reference's `Choice` control
+masks — the wavefront counterpart of the reference's `Choice` control
 flow (disney.py:136-231, materials/__init__.py:21-48).
 
 Representation: colors and directions are SoA V3 rows (see utils/vec.py);

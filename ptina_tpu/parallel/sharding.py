@@ -1,10 +1,11 @@
 '''
 shard_map rendering and data-parallel gradient steps.
 
-Design (scaling-book style): pick a 1-D mesh over all chips, shard the
-film's row axis, replicate the scene.  Rendering needs no collectives at
-all (each band of pixels is independent); the differentiable training
-step psums material/texture gradients over ICI.
+Design: a 1-D mesh over the devices, the film's row axis sharded,
+the scene replicated.  The mesh follows the film rows alone: rendering
+needs no collectives at all (each band of pixels is independent), and
+the differentiable training step all-reduces the material gradients
+once per step, so no device pairing is preferred over another.
 
 Caching: the shard_map-wrapped jitted callables are built once per
 (mesh, film shape, spp/lr) in a module-level memo.  Building them inside
@@ -82,7 +83,7 @@ def _train_step_fn(mesh, nx, ny, lr):
         def local_loss(fac):
             sc = scene_.replace(materials=scene_.materials.replace(fac=fac))
             film = render_sample(sc, film_, sample_index_,
-                                 x0=x0, full_res=(nx, ny), fused=False)
+                                 x0=x0, full_res=(nx, ny))
             img = film_to_image(film)[..., :3]
             return jnp.mean((img - target_) ** 2)
 

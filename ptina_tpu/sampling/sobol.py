@@ -3,8 +3,8 @@ Stateless Sobol quasi-random sequence.
 
 The reference keeps a mutable gray-code Sobol state advanced once per
 frame for all 21201 dimensions (reference: ptina/sampling/sobol.py:99-125,
-with Joe-Kuo direction numbers from the pysobol package).  On TPU a
-stateful XOR update would serialize; instead we make the sequence a pure
+with Joe-Kuo direction numbers from the pysobol package).  A stateful
+XOR update would serialize the samples; instead we make the sequence a pure
 function of (sample_index, dimension):
 
     x(n, d) = XOR_{bit b set in gray(n)} V[d, b]
@@ -35,7 +35,7 @@ from ptina_tpu.sampling import wanghash, wanghash2
 
 __all__ = ['sobol_vgrid', 'sobol', 'sobol_block', 'sample_dims', 'pixel_rotation']
 
-SOBOL_BITS = 31  # keep values inside int32 for TPU friendliness
+SOBOL_BITS = 31  # keep values inside int32
 SKIP = 64  # burn-in matching the reference (ptina/sampling/sobol.py:75)
 
 
@@ -81,8 +81,7 @@ def pixel_rotation(pix_i, pix_j, ndims):
 
     Dimension-major layout: each uniforms[d] is a dense [...]-shaped row
     (pixel axes minor), so per-dimension slices in the integrator are
-    contiguous — a pixel-major [..., ndims] array would pad its minor
-    ndims axis to 128 lanes when materialized on TPU.'''
+    contiguous.'''
     base = wanghash2(pix_i, pix_j)
     dims = jnp.arange(ndims, dtype=jnp.uint32)
     dims = dims.reshape((ndims,) + (1,) * jnp.ndim(base))
@@ -97,10 +96,10 @@ def sample_dims(sample_index, pix_i, pix_j, ndims, rot=None):
 
     rot: optional precomputed pixel_rotation(pix_i, pix_j, ndims).  The
     rotation is constant across sample indices but costs ~10 int-hash
-    ops per (dim, pixel) — measured 1.8 of the 3.0 ms/sample budget at
-    512x512x32dims when recomputed per sample (XLA does NOT hoist it out
-    of a scan over samples: the hoisted value would be a 33 MB live
-    buffer).  Per-sample loops should compute it once and pass it in.'''
+    ops per (dim, pixel), and XLA does NOT hoist it out of a scan over
+    samples (the hoisted value would be a 33 MB live buffer at
+    512x512x32 dims).  Per-sample loops should compute it once and pass
+    it in.'''
     pt = sobol_block(sample_index, ndims)  # [ndims]
     pt = pt.reshape((ndims,) + (1,) * jnp.ndim(pix_i))
     if rot is None:

@@ -3,7 +3,7 @@ Scene representation: one immutable pytree of static-shaped arrays.
 
 The reference scatters scene state across process-wide singleton pools
 (ModelPool/MaterialPool/ImagePool/LightPool/WorldLight/Camera, built by
-init_things — reference: ptina/things.py:12-28).  The TPU-native design
+init_things — reference: ptina/things.py:12-28).  This design
 replaces all of them with a single value: a `Scene` dataclass whose
 fields are jnp arrays.  Rendering is then a pure function
 film' = render(scene, film, sample_index), which is what makes jit,
@@ -12,13 +12,13 @@ shard_map work without any plumbing.
 
 Triangles are stored SoA and, at build time, each triangle is compiled to
 a 3x4 affine functional matrix (`tri_w2b`): its rows evaluate the plane
-equation and the two barycentric coordinates of a point.  This is what
-lets a ray cast run as two MXU matmuls (see intersect/brute.py).
+equation and the two barycentric coordinates of a point.  Every cast
+evaluates these functionals (intersect/brute.py, intersect/triton_cast.py).
 '''
 
 from __future__ import annotations
 
-import flax.struct
+from ptina_tpu.utils import struct
 import jax.numpy as jnp
 import numpy as np
 
@@ -26,13 +26,7 @@ from ptina_tpu.utils.mathutils import cross, dot
 
 __all__ = ['Scene', 'Materials', 'Lights', 'TextureAtlas', 'make_scene',
            'DEFAULT_MATERIAL', 'MATERIAL_PARAMS', 'LIGHT_POINT', 'LIGHT_AREA',
-           'precompute_tri_functionals', 'BLOCK_FACES']
-
-# Face-block granularity of the two-level blocked cast (big scenes):
-# faces are Morton-ordered and partitioned into spatially-coherent blocks
-# of this size; the cast kernels cull whole blocks per ray tile against
-# the per-block AABBs (intersect/blocked.py).
-BLOCK_FACES = 512
+           'precompute_tri_functionals']
 
 # Disney parameter layout (order matches the reference's MaterialPool,
 # ptina/mtllib.py:58-77).
@@ -54,7 +48,7 @@ LIGHT_POINT = 1  # reference: ptina/light/__init__.py:11
 LIGHT_AREA = 2
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Materials:
     '''Material table: [M+1, 12, 4] factors and [M+1, 12] texture ids.
     Row M (the last row) holds the defaults for mtlid == -1.  A parameter's
@@ -68,18 +62,10 @@ class Materials:
     which drops the clearcoat lobe, the transmission sub-branch
     (dielectric Fresnel + refraction), sheen and subsurface terms from
     scenes that do not use them.  Being part of the pytree STRUCTURE,
-    a material edit that turns a lobe on recompiles automatically.
-
-    `textured` is the STATIC tuple of (material, param, texid) int
-    triples where `tex` >= 0 — the texture bindings as compile-time
-    structure, which lets the fused megakernel unroll its in-VMEM
-    texture fetches (engine/fused.py) without tracing data-dependent
-    control flow.  It mirrors `tex` by construction (make_materials);
-    edit bindings by rebuilding the table, not by replacing `tex`.'''
+    a material edit that turns a lobe on recompiles automatically.'''
     fac: jnp.ndarray   # [M+1, 12, 4] f32
     tex: jnp.ndarray   # [M+1, 12] i32
-    zero: tuple = flax.struct.field(pytree_node=False, default=())
-    textured: tuple = flax.struct.field(pytree_node=False, default=())
+    zero: tuple = struct.static_field(())
 
 
 # lobes the Disney evaluator can statically drop when the parameter is
@@ -89,7 +75,7 @@ SPECIALIZABLE_PARAMS = ('metallic', 'subsurface', 'sheen', 'clearcoat',
                         'transmission')
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Lights:
     '''Analytic light pool, SoA over a fixed capacity L
     (reference: ptina/light/__init__.py:13-19).  `count` is a traced
@@ -105,11 +91,10 @@ class Lights:
     size: jnp.ndarray   # [L]
     type: jnp.ndarray   # [L] i32 (0 = empty slot)
     count: jnp.ndarray  # [] i32
-    kinds: tuple = flax.struct.field(pytree_node=False,
-                                     default=('point', 'area'))
+    kinds: tuple = struct.static_field(('point', 'area'))
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class TextureAtlas:
     '''All textures padded to a common [H, W] and stacked
     (replaces the reference's first-fit texel allocator,
@@ -119,7 +104,7 @@ class TextureAtlas:
     ny: jnp.ndarray    # [T] i32 actual height (second axis extent)
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Scene:
     # Geometry (SoA triangle soup; reference layout ptina/model.py:15,
     # ptina/multimesh.py:25-29 — here split per attribute instead of
@@ -129,7 +114,6 @@ class Scene:
     tri_uv: jnp.ndarray    # [F, 3, 2] f32 vertex texcoords
     tri_mtl: jnp.ndarray   # [F] i32 material id (-1 = default)
     tri_w2b: jnp.ndarray   # [F, 3, 4] f32 world->barycentric functionals
-    tri_attrs: jnp.ndarray  # [18, F] corner-major shading attributes
     nfaces: jnp.ndarray    # [] i32 live faces (slots >= nfaces are padding)
 
     materials: Materials
@@ -144,33 +128,10 @@ class Scene:
     cam_v2w: jnp.ndarray   # [4, 4] f32
     cam_w2v: jnp.ndarray   # [4, 4] f32
 
-    # Two-level acceleration (the TPU counterpart of the reference's BVH,
-    # ptina/tree/lbvh.py): per-face-block AABBs over the (Morton-ordered,
-    # for big scenes) face table, [ceil(F / BLOCK_FACES), 8] rows of
-    # (lo.xyz, hi.xyz, 0, 0).  Blocks of pure padding carry an inverted
-    # box so every slab test fails (intersect/blocked.py).
-    block_bounds: jnp.ndarray
-
-    # Pre-packed per-block cast tables for the blocked route
-    # (intersect/blocked.blocked_tables): t5b [nb, 5*BLOCK_FACES, 14]
-    # Plücker coefficients, attrsb [nb, 3C + 15, BLOCK_FACES] extraction
-    # rows.  Scene CONSTANTS — computed once here instead of per traced
-    # cast (repacking 102k faces inside the render graph re-ran
-    # pack_plucker every dispatch).  None on scenes that never route
-    # blocked (small, accel='dense').
-    t5b: jnp.ndarray = None
-    attrsb: jnp.ndarray = None
-
-    # Acceleration-structure selection knob (config.accel): 'auto' routes
-    # by face count, 'dense'/'blocked' force a path.  Static (not traced):
-    # part of the pytree structure, so changing it recompiles.
-    accel: str = flax.struct.field(pytree_node=False, default='auto')
-
     # STATIC mirror of `world_tex` (set by make_scene; -1 = constant
-    # environment): lets trace-time routing (megakernel eligibility and
-    # its unrolled in-VMEM equirect fetch, world_at's gather) specialize
-    # on whether/which texture lights the environment.
-    world_tex_id: int = flax.struct.field(pytree_node=False, default=-1)
+    # environment): lets trace-time code (world_at's gather) specialize
+    # on whether a texture lights the environment.
+    world_tex_id: int = struct.static_field(-1)
 
     @property
     def world_textured(self):
@@ -198,8 +159,7 @@ def precompute_tri_functionals(tri_pos):
     # NORMALIZE the plane row: |n| scales with triangle AREA, so on a
     # densely tessellated mesh (~3e-5-area faces at 300k) the raw cross
     # product made b0 = n . d fall below brute.cast's 1e-6 parallel-ray
-    # epsilon for EVERY ray — real hits rejected — and fed the Plücker
-    # core coefficients with a huge dynamic range (round 5).  t = -a0/b0
+    # epsilon for EVERY ray, so real hits were rejected.  t = -a0/b0
     # is invariant under positive row scaling, so every consumer agrees;
     # with a unit normal the epsilon means "within 1e-6 of parallel".
     n = n * jnp.where(ok, 1.0 / jnp.sqrt(jnp.where(ok, nn, 1.0)),
@@ -210,67 +170,6 @@ def precompute_tri_functionals(tri_pos):
         jnp.concatenate([gv, -dot(gv, v0)[:, None]], axis=-1),
     ], axis=1)  # [F, 3, 4]
     return rows
-
-
-def _morton30_host(p):
-    '''30-bit Morton codes for points p [N, 3] in [0, 1] (host numpy;
-    same bit spreading as intersect/lbvh.morton3d — reference
-    expandBits/morton3D, ptina/tree/lbvh.py:12-30).'''
-    q = np.clip(np.floor(p * 1024.0), 0, 1023).astype(np.uint32)
-
-    def expand(v):
-        v = (v * np.uint32(0x00010001)) & np.uint32(0xFF0000FF)
-        v = (v * np.uint32(0x00000101)) & np.uint32(0x0F00F00F)
-        v = (v * np.uint32(0x00000011)) & np.uint32(0xC30C30C3)
-        v = (v * np.uint32(0x00000005)) & np.uint32(0x49249249)
-        return v
-    return expand(q[:, 0]) * 4 + expand(q[:, 1]) * 2 + expand(q[:, 2])
-
-
-def morton_face_order(tri_pos):
-    '''Spatially-coherent face permutation: stable argsort of the Morton
-    codes of face centroids normalized to the scene AABB (the leaf order
-    of the reference's LBVH, ptina/tree/lbvh.py:168-208).  Host numpy —
-    runs once at scene build.'''
-    centers = tri_pos.reshape(-1, 3, 3).mean(axis=1)
-    lo = centers.min(axis=0)
-    hi = centers.max(axis=0)
-    norm = (centers - lo) / np.maximum(hi - lo, 1e-12)
-    return np.argsort(_morton30_host(norm), kind='stable')
-
-
-def compute_block_bounds(tri_pos, nfaces, block_faces=BLOCK_FACES):
-    '''Per-face-block AABBs [ceil(F / block), 8] of (lo.xyz, hi.xyz, 0, 0)
-    over the padded face table tri_pos [F, 3, 3].  Only live faces
-    (index < nfaces) contribute; blocks of pure padding get an inverted
-    box (+inf lo, -inf hi) so every slab test rejects them.  Host numpy.'''
-    f = tri_pos.shape[0]
-    nblocks = max(1, -(-f // block_faces))
-    big = np.float32(3.4e38)
-    out = np.zeros((nblocks, 8), np.float32)
-    out[:, 0:3] = big
-    out[:, 3:6] = -big
-    for b in range(nblocks):
-        s = b * block_faces
-        e = min(min(s + block_faces, f), nfaces)
-        if e <= s:
-            continue
-        verts = tri_pos[s:e].reshape(-1, 3)
-        out[b, 0:3] = verts.min(axis=0)
-        out[b, 3:6] = verts.max(axis=0)
-    return out
-
-
-def pack_corner_attrs(tri_nrm, tri_uv, tri_mtl):
-    '''Corner-major shading attribute table for the fused Pallas shade
-    kernel (intersect/pallas_cast.py): [3 corners x 6 channels, F] where
-    the channels are (nrm.xyz, uv.xy, mtlid).  The kernel interpolates
-    them barycentrically; mtlid is constant per face so the interpolation
-    reproduces it exactly.'''
-    f = tri_nrm.shape[0]
-    mtl = jnp.broadcast_to(tri_mtl.astype(jnp.float32)[:, None, None], (f, 3, 1))
-    per_corner = jnp.concatenate([tri_nrm, tri_uv, mtl], axis=-1)  # [F, 3, 6]
-    return per_corner.transpose(1, 2, 0).reshape(18, f)
 
 
 def make_materials(materials=None, max_materials=None):
@@ -306,11 +205,7 @@ def make_materials(materials=None, max_materials=None):
     zero = tuple(
         name for p, name in enumerate(MATERIAL_PARAMS)
         if name in SPECIALIZABLE_PARAMS and not fac[:, p, :3].any())
-    textured = tuple(
-        (mi, pi, int(tex[mi, pi]))
-        for mi in range(m + 1) for pi in range(12) if tex[mi, pi] >= 0)
-    return Materials(fac=jnp.asarray(fac), tex=jnp.asarray(tex), zero=zero,
-                     textured=textured)
+    return Materials(fac=jnp.asarray(fac), tex=jnp.asarray(tex), zero=zero)
 
 
 def make_textures(images=None):
@@ -354,10 +249,9 @@ def make_lights(lights=None, max_lights=None, default_light=True):
 
     Capacity defaults to exactly the scene's light count (the reference
     reserves 64 slots, ptina/things.py:17 — here the light loops are
-    UNROLLED per slot in both the wavefront queries and the megakernel,
-    so every unused slot costs real per-bounce VPU work: an 8-slot pool
-    made the 1-light cornell megakernel spend ~8x the needed light time;
-    pass max_lights to reserve headroom).'''
+    UNROLLED per slot in the wavefront light queries, so every unused
+    slot costs real per-bounce work; pass max_lights to reserve
+    headroom).'''
     if lights is None and default_light:
         lights = [dict(color=(32, 32, 32), pos=(1, 2, 3), size=0.5,
                        type=LIGHT_POINT)]
@@ -390,19 +284,13 @@ def make_lights(lights=None, max_lights=None, default_light=True):
 def make_scene(vertices, mtlids=None, materials=None, images=None,
                lights=None, world_fac=(0.1, 0.1, 0.1, 0.1), world_tex=-1,
                cam_pers=None, default_light=True, pad_faces_to=8,
-               accel='auto', morton=None, max_lights=None,
-               max_materials=None):
+               max_lights=None, max_materials=None):
     '''Assemble a Scene from host-side numpy data.
 
     vertices: [F*3, 8] float array (pos3 + nrm3 + uv2 per vertex, the
     reference's flat layout, ptina/model.py:15) or a dict from readobj.
     mtlids: [F] int material ids (-1 = default material).
     cam_pers: 4x4 projection @ view matrix (world -> clip).
-    accel: 'auto' | 'dense' | 'blocked' (config.accel; see Scene.accel).
-    morton: reorder faces along the Morton curve so the blocked cast's
-    per-block AABBs are spatially tight.  None = auto: on for scenes big
-    enough to take the blocked path (face order of small scenes is
-    preserved for deterministic tests / golden images).
     '''
     from ptina_tpu.io.matrix import ortho, lookat
     if isinstance(vertices, dict):
@@ -419,17 +307,6 @@ def make_scene(vertices, mtlids=None, materials=None, images=None,
     # pad face count to a multiple (tile-friendly static shapes)
     fpad = max(pad_faces_to, ((nfaces + pad_faces_to - 1) // pad_faces_to) * pad_faces_to)
     tri = vertices.reshape(nfaces, 3, 8)
-    if morton is None:
-        from ptina_tpu.intersect.dispatch import MAX_DENSE_FACES
-        morton = accel == 'blocked' or (accel == 'auto'
-                                        and fpad > MAX_DENSE_FACES)
-    if morton and nfaces > 1:
-        perm = morton_face_order(tri[:, :, 0:3])
-        tri = tri[perm]
-        mtlids = mtlids[perm]
-    if morton:
-        # blocked-cast scenes need whole face blocks (intersect/blocked.py)
-        fpad = -(-fpad // BLOCK_FACES) * BLOCK_FACES
     tri_pos = np.zeros((fpad, 3, 3), np.float32)
     tri_nrm = np.zeros((fpad, 3, 3), np.float32)
     tri_uv = np.zeros((fpad, 3, 2), np.float32)
@@ -448,20 +325,12 @@ def make_scene(vertices, mtlids=None, materials=None, images=None,
         cam_pers = ortho() @ lookat()
     cam_pers = np.asarray(cam_pers, np.float32)
 
-    tri_w2b_j = precompute_tri_functionals(tri_pos_j)
-    tri_attrs_j = pack_corner_attrs(tri_nrm_j, tri_uv_j, tri_mtl_j)
-    t5b = attrsb = None
-    if morton:  # scenes that (can) route blocked: pre-pack once
-        from ptina_tpu.intersect.blocked import blocked_tables
-        t5b, attrsb = blocked_tables(tri_w2b_j, tri_attrs_j, BLOCK_FACES)
-
     return Scene(
         tri_pos=tri_pos_j,
         tri_nrm=tri_nrm_j,
         tri_uv=tri_uv_j,
         tri_mtl=tri_mtl_j,
-        tri_w2b=tri_w2b_j,
-        tri_attrs=tri_attrs_j,
+        tri_w2b=precompute_tri_functionals(tri_pos_j),
         nfaces=jnp.asarray(nfaces, jnp.int32),
         materials=make_materials(materials, max_materials=max_materials),
         textures=make_textures(images),
@@ -471,9 +340,5 @@ def make_scene(vertices, mtlids=None, materials=None, images=None,
         world_tex=jnp.asarray(world_tex, jnp.int32),
         cam_v2w=jnp.asarray(np.linalg.inv(cam_pers), jnp.float32),
         cam_w2v=jnp.asarray(cam_pers, jnp.float32),
-        block_bounds=jnp.asarray(compute_block_bounds(tri_pos, nfaces)),
-        t5b=t5b,
-        attrsb=attrsb,
-        accel=accel,
         world_tex_id=int(world_tex),
     )

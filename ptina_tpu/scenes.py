@@ -238,11 +238,9 @@ def cornell_monkey(**kw):
 
 def cornell_highpoly(nu=320, nv=160, **kw):
     '''Cornell + a ~101k-triangle smooth sphere: the big-scene
-    configuration that exercises the blocked two-level cast
-    (intersect/blocked.py).  The reference handles this class of scene
-    through its LBVH (capacity 2^21 faces, ptina/things.py:13); the
-    dense single-pass kernels top out at 8192 faces, so this scene
-    auto-routes to accel='blocked' with Morton-ordered face blocks.'''
+    configuration, where the cast's O(rays x faces) work dominates.
+    The reference handles this class of scene through its LBVH
+    (capacity 2^21 faces, ptina/things.py:13).'''
     shell, mtl = _cornell_shell()
     blob = _uv_sphere((0.0, 1.3, 0.2), 1.0, nu=nu, nv=nv)
     tall = _box_tris((-1.2, 0.45, -0.9), (0.45, 0.45, 0.45),

@@ -86,9 +86,7 @@ def safe_div(a, b, eps=1e-12):
 def tanframe(nrm, up=(233.0, 666.0, 512.0)):
     '''Tangent frame (tan, bitan) for a [..., 3] normal
     (reference: ptina/common.py:213-217).  Returned as two separate
-    [..., 3] vectors: on TPU a stacked [..., 3, 3] frame matrix would
-    materialize with the minor axes padded to full (8, 128) tiles
-    (~40x the useful bytes), so frame application stays elementwise:
+    [..., 3] vectors, so frame application stays elementwise:
     world = tan*l.x + bitan*l.y + nrm*l.z.'''
     up = jnp.asarray(up, dtype=nrm.dtype)
     up = jnp.broadcast_to(up, nrm.shape)
@@ -151,9 +149,8 @@ def normaldist(samp):
 
     Implemented as the classic two-branch single-precision erfinv
     polynomial (Giles 2010, "Approximating the erfinv function", ~1e-6
-    relative): jax.scipy.special.erfinv lowers to a slow high-precision
-    path on TPU — measured ~8 ms for the MLT mutation block [32, 131k]
-    where this polynomial takes <1 ms.  The construction is EXACTLY odd
+    relative), cheaper than jax.scipy.special.erfinv's high-precision
+    expansion.  The construction is EXACTLY odd
     around samp = 0.5 (both branches are odd multiples of s), so the
     Metropolis proposal stays exactly symmetric.'''
     s = jnp.clip(samp * 2.0 - 1.0, -1.0 + 1e-7, 1.0 - 1e-7)

@@ -9,7 +9,7 @@ prefixes ("[TinaBVH] ...", SURVEY.md §5).  Here:
   * `timed(name)` — context manager measuring wall-clock (with
     block_until_ready on exit so device work is included);
   * `profile_trace(dir)` — context manager around jax.profiler for
-    xprof/tensorboard traces of the real TPU execution.
+    traces of the device execution.
 '''
 
 import contextlib

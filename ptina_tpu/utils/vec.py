@@ -1,24 +1,20 @@
 '''
-SoA 3-vectors: the TPU-native vector representation for the hot path.
+SoA 3-vectors: the vector representation of the hot path.
 
 Why not [N, 3] arrays (reference Taichi vectors, ptina/common.py:32-120):
-XLA:TPU tiles the two minor axes of every materialized array to (8, 128),
-so a component axis of size 3 pads 3 -> 128 lanes (~42x the useful
-bytes), and every dot product becomes a reduce over that minor axis —
-a fusion breaker.  Profiling the wavefront integrator at 512x512 showed
-~360 fusion kernels per sample, most of them minor-axis reduces over
-padded [N, 3] boundaries.
+every dot product on an [N, 3] array is a reduce over its minor axis of
+size 3, which breaks XLA's elementwise fusions and strides every access.
 
 `V3` stores x/y/z as three independent dense [N]-shaped rows.  All vector
 algebra (dot, cross, normalize, reflect, refract, frames) is then pure
-elementwise arithmetic that XLA fuses end-to-end; nothing ever pads.
-V3 is a pytree (flax.struct), so it passes through jit/grad/shard_map
-and jax.tree utilities transparently.
+elementwise arithmetic that XLA fuses end-to-end.  V3 is a pytree
+(utils/struct.py), so it passes through jit/grad/shard_map and jax.tree
+utilities transparently.
 '''
 
 from __future__ import annotations
 
-import flax.struct
+from ptina_tpu.utils import struct
 import jax.numpy as jnp
 
 from ptina_tpu.utils.mathutils import EPS, TAU, safe_sqrt
@@ -28,7 +24,7 @@ __all__ = ['V3', 'v3', 'vdot', 'vdot_or_zero', 'vnorm', 'vnormalize',
            'vtanframe', 'vspherical', 'vdir2tex']
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class V3:
     x: jnp.ndarray
     y: jnp.ndarray

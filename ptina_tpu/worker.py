@@ -116,16 +116,14 @@ def _rebuild():
         lights=_S.lights if (_S.lights or not _S.default_light) else None,
         default_light=_S.default_light,
         world_fac=_S.world_fac, world_tex=_S.world_tex, cam_pers=cam,
-        accel=_S.config.accel, pad_faces_to=_S.config.pad_faces_to,
+        pad_faces_to=_S.config.pad_faces_to,
         max_lights=_S.config.max_lights,
         max_materials=_S.config.max_materials)
     _S.dirty = False
     from ptina_tpu.utils.trace import log
-    from ptina_tpu.intersect.dispatch import _route
     sc = _S.scene
     log('TinaScene',
-        f'{int(sc.nfaces)} faces (pad {sc.tri_w2b.shape[0]}, '
-        f'accel={sc.accel} -> {_route(sc)}), '
+        f'{int(sc.nfaces)} faces (pad {sc.tri_w2b.shape[0]}), '
         f'{int(sc.lights.count)} lights, '
         f'{sc.materials.fac.shape[0] - 1} materials, '
         f'{sc.textures.data.shape[0]} textures')
@@ -272,8 +270,8 @@ def load_materials(materials):
 
 
 def build_tree():
-    '''Finalize scene acceleration (reference worker.build_tree).  The
-    dense MXU cast needs no build; the LBVH path builds lazily.'''
+    '''Finalize the scene (reference worker.build_tree).  The dense
+    casts need no acceleration structure, so this only rebuilds.'''
     _rebuild()
 
 

@@ -103,34 +103,3 @@ def test_middlebvh_matches_brute():
     hits = np.asarray(hb.hit) & same
     assert np.allclose(np.asarray(hb.t)[hits], np.asarray(ht.t)[hits],
                        rtol=1e-4, atol=1e-4)
-
-
-def test_bench_regression_gate_parses_and_flags():
-    '''bench.py's round-over-round gate: _prev_round_values must parse
-    the latest BENCH_r{N}.json tail, and _emit must stamp
-    delta_vs_prev_pct and warn loudly on a >10% drop (round 4 shipped a
-    silent 27% cornell_monkey regression).'''
-    import io
-    import json
-    import contextlib
-    import sys as _sys
-    import os as _os
-    _sys.path.insert(0, _os.path.join(_os.path.dirname(__file__), '..'))
-    import bench
-
-    prev = bench._prev_round_values()
-    assert prev, 'no BENCH_r*.json parsed'
-    assert all(isinstance(v, (int, float)) for v in prev.values())
-
-    metric = next(iter(prev))
-    bench._PREV = dict(prev)
-    out, err = io.StringIO(), io.StringIO()
-    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-        bench._emit(metric, prev[metric] * 0.5, 1.0)   # 50% drop
-        bench._emit(metric, prev[metric] * 1.05, 1.0)  # 5% gain
-    lines = [json.loads(l) for l in out.getvalue().splitlines()]
-    assert lines[0]['delta_vs_prev_pct'] == -50.0
-    assert abs(lines[1]['delta_vs_prev_pct'] - 5.0) < 0.2
-    assert 'REGRESSION' in err.getvalue()
-    assert err.getvalue().count('REGRESSION') == 1  # only the drop warns
-    bench._PREV = None

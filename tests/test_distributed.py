@@ -1,10 +1,7 @@
 '''
 Real 2-process jax.distributed run (tools/distributed_2proc.py): two
 coordinator-connected CPU processes render a row-sharded film over the
-2-process global mesh, verify their bands against a local render, and
-report an honestly-formulated scaling number (BASELINE.md's >= 80%
-2-host target; see the tool's docstring for the localhost-proxy
-formula).
+2-process global mesh and verify their bands against a local render.
 '''
 
 import json
@@ -17,7 +14,7 @@ TOOL = os.path.join(REPO, 'tools', 'distributed_2proc.py')
 
 
 def test_two_process_distributed_render(tmp_path):
-    out_json = str(tmp_path / 'scaling.json')
+    out_json = str(tmp_path / 'result.json')
     r = subprocess.run(
         [sys.executable, TOOL, '--res', '64', '--spp', '4',
          '--out', out_json],
@@ -28,12 +25,5 @@ def test_two_process_distributed_render(tmp_path):
     assert out['procs'] == 2
     assert out['process_count_seen'] == [2, 2]  # is_distributed() was true
     assert out['band_allclose'] is True
-    assert out['sps_2proc_global'] > 0
-    # the efficiency formula must stay PHYSICAL: eff = sps_2proc /
-    # (2 * sps_1core) in (0, 1.05] (round 4 shipped a speedup mislabeled
-    # as a 1.9 "efficiency")
-    assert 0.0 < out['efficiency'] <= 1.05
-    assert out['efficiency'] >= 0.5, 'scaling collapsed'
-    assert os.path.exists(out_json)
-    # the committed artifact (from a quiet-host run) must exist too
-    assert os.path.exists(os.path.join(REPO, 'SCALING_2PROC.json'))
+    with open(out_json) as f:
+        assert json.load(f) == out

@@ -132,39 +132,6 @@ def test_light_color_gradient_matches_fd():
     assert abs(g[0, 0] - fd) < 0.05 * max(abs(fd), 1e-5), (g[0, 0], fd)
 
 
-def test_fused_vjp_grads_match_wavefront():
-    '''The custom_vjp pairing (megakernel forward + wavefront-recompute
-    backward, engine/fused.fused_trace_diff) must produce the SAME
-    gradients as differentiating the wavefront integrator directly —
-    up to the two forwards' cast-rounding difference entering through
-    d(loss)/d(image).'''
-    from ptina_tpu.diff import render_image_diff
-    from ptina_tpu.engine.fused import (fused_trace_diff,
-                                        fused_trace_diff_interp)
-    scene = cornell_box()
-    target = jnp.zeros((8, 8, 3))
-    trace = fused_trace_diff if jax.default_backend() == 'tpu' \
-        else fused_trace_diff_interp
-
-    def loss_wave(fac):
-        sc = scene.replace(materials=scene.materials.replace(fac=fac))
-        img = render_image_diff(sc, 8, 8, _trace_diff=False)
-        return jnp.mean((img - target) ** 2)
-
-    def loss_fused(fac):
-        sc = scene.replace(materials=scene.materials.replace(fac=fac))
-        img = render_image_diff(sc, 8, 8, _trace_diff=trace)
-        return jnp.mean((img - target) ** 2)
-
-    lw, gw = jax.value_and_grad(loss_wave)(scene.materials.fac)
-    lf, gf = jax.value_and_grad(loss_fused)(scene.materials.fac)
-    assert abs(float(lf) - float(lw)) < 2e-3 * max(float(lw), 1e-6)
-    gw, gf = np.asarray(gw), np.asarray(gf)
-    assert np.isfinite(gf).all() and np.abs(gw).max() > 0
-    assert np.allclose(gf, gw, rtol=0.05,
-                       atol=1e-4 * max(np.abs(gw).max(), 1e-6))
-
-
 def test_gradient_nonzero_only_for_used_params():
     scene = cornell_box()
     film = new_film(8, 8)

@@ -96,13 +96,12 @@ def test_degenerate_padding_never_hits():
 
 def test_far_clip_hit_is_miss():
     '''A hit at t >= INF (1e6) is a MISS in every cast implementation:
-    brute rejects it via t < INF; the Plücker packed-key core must not
-    clamp it onto the sentinel and report a phantom hit at t ~ 999936
-    (round-3 advisor repro: far geometry shadowed instead of sampling
-    the environment).'''
+    brute rejects it via t < INF, and the GPU kernels (here in interpret
+    mode) must not report it either — far geometry shadowed instead of
+    sampling the environment.'''
     from ptina_tpu.intersect import brute
-    from ptina_tpu.intersect.pallas_cast import (
-        pallas_cast_closest, pallas_cast_any)
+    from ptina_tpu.intersect.triton_cast import (
+        triton_cast_closest, triton_cast_any)
     from ptina_tpu.utils.vec import V3
 
     # one huge triangle 2e6 away, perpendicular to +z
@@ -115,56 +114,10 @@ def test_far_clip_hit_is_miss():
 
     ref = brute.cast_closest(ro, rd, m, avoid)
     assert not np.asarray(ref.hit).any()
-    hit = pallas_cast_closest(ro, rd, m, avoid, interpret=True)
+    hit = triton_cast_closest(ro, rd, m, avoid, interpret=True)
     assert not np.asarray(hit.hit).any()
     # a far-clip miss must not occlude, even for tmax beyond INF
     tmax = jnp.full(8, 3e6)
     assert not np.asarray(brute.cast_any(ro, rd, m, avoid, tmax)).any()
-    occ = pallas_cast_any(ro, rd, m, avoid, tmax, interpret=True)
+    occ = triton_cast_any(ro, rd, m, avoid, tmax, interpret=True)
     assert not np.asarray(occ).any()
-
-
-def test_pallas_wavefront_casts_match_brute():
-    '''The Plücker-core Pallas wavefront casts (interpret mode) agree
-    with the XLA brute oracle — hit flags, winner face, ordering-grade
-    t (2^-12 packed-key grid), barycentrics, occlusion.'''
-    import jax
-    from ptina_tpu.intersect import brute
-    from ptina_tpu.intersect.pallas_cast import (
-        pallas_cast_closest, pallas_cast_any, pallas_cast_shade)
-    from ptina_tpu.utils.vec import V3
-
-    rng = np.random.RandomState(7)
-    tris = rng.randn(37, 3, 3).astype(np.float32) * 2
-    m = precompute_tri_functionals(jnp.asarray(tris))
-    n = 160
-    ro_n = (rng.randn(n, 3) * 3).astype(np.float32)
-    rd_n = rng.randn(n, 3).astype(np.float32)
-    rd_n /= np.linalg.norm(rd_n, axis=1, keepdims=True)
-    ro = V3.from_array(jnp.asarray(ro_n))
-    rd = V3.from_array(jnp.asarray(rd_n))
-    avoid = jnp.full(n, -1, jnp.int32)
-
-    ref = brute.cast_closest(ro, rd, m, avoid)
-    hit = pallas_cast_closest(ro, rd, m, avoid, interpret=True)
-    np.testing.assert_array_equal(np.asarray(hit.hit), np.asarray(ref.hit))
-    np.testing.assert_array_equal(np.asarray(hit.index),
-                                  np.asarray(ref.index))
-    msk = np.asarray(ref.hit)
-    np.testing.assert_allclose(np.asarray(hit.t)[msk],
-                               np.asarray(ref.t)[msk], rtol=5e-4, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(hit.u)[msk],
-                               np.asarray(ref.u)[msk], rtol=1e-3, atol=1e-4)
-
-    # shade variant: same winner + sane interpolated attrs shape
-    attrs_tbl = jnp.zeros((18, m.shape[0]), jnp.float32)
-    hit2, attrs = pallas_cast_shade(ro, rd, m, avoid, attrs_tbl,
-                                    interpret=True)
-    np.testing.assert_array_equal(np.asarray(hit2.index),
-                                  np.asarray(ref.index))
-    assert attrs.shape == (6, n)
-
-    tmax = jnp.full(n, 4.0)
-    occ_ref = brute.cast_any(ro, rd, m, avoid, tmax)
-    occ = pallas_cast_any(ro, rd, m, avoid, tmax, interpret=True)
-    np.testing.assert_array_equal(np.asarray(occ), np.asarray(occ_ref))

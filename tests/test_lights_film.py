@@ -88,15 +88,6 @@ def test_lights_hit_nearest_wins():
     assert abs(float(out['dis'][0]) - 2.5) < 1e-4  # 3 - 0.5 radius
     assert np.allclose(np.asarray(out['color'].to_array()[0]), [0, 1, 0])
 
-    # the megakernel's in-kernel variant (pure jnp: callable outside
-    # Pallas) must mirror the same nearest-wins semantics
-    from ptina_tpu.engine.fused import _lights_hit_k, _pack_lights
-    lt = _pack_lights(lights)
-    found, dis, pdf, color = _lights_hit_k(lt, lights.count, ro, rd)
-    assert bool(found[0])
-    assert abs(float(dis[0]) - 2.5) < 1e-4
-    assert np.allclose(np.asarray(color.to_array()[0]), [0, 1, 0])
-
 
 def test_lights_sample_empty_pool():
     lights = make_lights([], default_light=False)

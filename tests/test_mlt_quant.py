@@ -1,6 +1,6 @@
 '''
-Quantitative MLT correctness (VERDICT round-2 ask: the MLT fix must be
-MEASURED, not just implemented).
+Quantitative MLT correctness: the MLT fix must be MEASURED, not just
+implemented.
 
 The reference's shipped MLT output is unnormalized — its film-count
 update is commented out "having bug" (/root/reference/ptina/engine/

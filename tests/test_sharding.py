@@ -27,10 +27,7 @@ def test_sharded_render_matches_single_device(eight_devices):
 
 def test_sharded_render_is_collective_free(eight_devices):
     '''Rendering must stay communication-free at any mesh size — every
-    device owns its film band outright — so per-chip throughput is flat
-    in mesh size by construction (the scaling guarantee behind the
-    >= 80% two-host target, BASELINE.md:34; measured proxy in
-    tools/scaling_proxy.py).'''
+    device owns its film band outright.'''
     from ptina_tpu.parallel.sharding import _render_fn
     scene = cornell_box()
     mesh = make_mesh(eight_devices)
@@ -69,7 +66,7 @@ def test_sharded_gradients_equal_single_device(eight_devices):
 
     def full_loss(fac):
         sc = scene.replace(materials=scene.materials.replace(fac=fac))
-        film = render_sample(sc, film0, 0, fused=False)
+        film = render_sample(sc, film0, 0)
         img = film_to_image(film)[..., :3]
         return jnp.mean((img - target) ** 2)
 

@@ -1,211 +1,127 @@
 '''
-Real 2-process jax.distributed scaling evidence (BASELINE.md: >= 80%
-rays/s efficiency to 2 hosts).
+Two-process jax.distributed check, on the CPU.
 
-Launcher (no args): runs a 1-core single-process baseline, then two
-`jax.distributed` worker processes (coordinator on localhost), each
-pinned to its own physical core with ONE XLA:CPU device, rendering a
-film row-sharded over the 2-process global mesh
-(parallel/sharding.render_sharded — zero render collectives by
-construction).  Each worker verifies its band against a local
-single-process render before timing.  Writes SCALING_2PROC.json.
-
-Honest-efficiency formula (stated here because round-3's proxy
-mislabeled a speedup as an efficiency): this host has NCORES physical
-cores; the attainable ideal for 2 processes is 2x the throughput of ONE
-process pinned to ONE core, so
-    efficiency = sps_2proc / (2 * sps_1core)
-with every run pinned by taskset so the baseline cannot silently use
-both cores.  This is a DCN-free localhost proxy: it exercises the real
-multi-process runtime (coordinator, global mesh, cross-process arrays)
-but not network latency.
+This is a CPU tool: it pins both worker processes to the CPU platform
+with one XLA:CPU device each, so it never competes for an accelerator.
+The launcher picks a free localhost port for the coordinator, then
+starts two `jax.distributed` worker processes that render one film
+row-sharded over the 2-process global mesh
+(parallel/sharding.render_sharded) and check their bands against a
+local single-process render of the same frame.  It exercises the real
+multi-process runtime (coordinator, global mesh, cross-process arrays);
+it measures no rate, because a CPU run cannot give one.
 
 Usage:
-    python tools/distributed_2proc.py              # full run, writes JSON
-    python tools/distributed_2proc.py --res 64 --spp 2   # quick (tests)
+    python tools/distributed_2proc.py --res 64 --spp 2 [--out result.json]
 '''
 
 import argparse
 import json
 import os
+import socket
 import subprocess
 import sys
-import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PORT = 17635
 
 
-def worker_env(extra):
+def free_port():
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(('localhost', 0))
+        return s.getsockname()[1]
+
+
+def worker_env():
     env = dict(os.environ)
     env['JAX_PLATFORMS'] = 'cpu'
     env['XLA_FLAGS'] = '--xla_force_host_platform_device_count=1'
-    env.update(extra)
     return env
 
 
 def run_worker(args):
-    '''Worker body (also the single-process baseline when process_id
-    is None).'''
-    os.environ.setdefault('JAX_PLATFORMS', 'cpu')
     import jax
     jax.config.update('jax_platforms', 'cpu')
-    jax.config.update('jax_compilation_cache_dir', '/tmp/ptina_jax_cache')
-    jax.config.update('jax_persistent_cache_min_compile_time_secs', 0.3)
-    jax.config.update('jax_persistent_cache_enable_xla_caches', 'all')
-    if args.process_id is not None:
-        # must run before ANY backend-initialising jax call (including
-        # the first jnp array the scene builder creates)
-        from ptina_tpu.parallel.distributed import init_distributed
-        active = init_distributed(
-            coordinator_address=f'localhost:{PORT}',
-            num_processes=2, process_id=args.process_id)
-        assert active, 'distributed runtime not active'
+    sys.path.insert(0, REPO)
+    from ptina_tpu.utils.cache import setup_compile_cache
+    setup_compile_cache()
+    # must run before ANY backend-initialising jax call (including the
+    # first jnp array the scene builder creates)
+    from ptina_tpu.parallel.distributed import (init_distributed,
+                                                is_distributed, global_mesh)
+    active = init_distributed(
+        coordinator_address=f'localhost:{args.port}',
+        num_processes=2, process_id=args.process_id)
+    assert active, 'distributed runtime not active'
 
     import numpy as np
-    import jax.numpy as jnp
     from ptina_tpu.scenes import cornell_box
     from ptina_tpu.film import new_film
     from ptina_tpu.engine.path import render
+    from ptina_tpu.parallel.sharding import render_sharded
 
-    res, spp = args.res, args.spp
-    scene = cornell_box()
-
-    if args.process_id is None:
-        # single-process 1-core baseline through the SAME sharded-render
-        # executable on a 1-device mesh (round 4 timed the baseline
-        # through render(spb=1) — spp separate python-loop dispatches —
-        # against the workers' single fori_loop dispatch, and the
-        # dispatch-overhead asymmetry inflated "efficiency" past 1);
-        # median of 3 trials
-        from ptina_tpu.parallel.sharding import make_mesh, render_sharded
-        import numpy as np
-        mesh = make_mesh(jax.devices()[:1])
-        np_film = np.asarray(new_film(res, res))
-        film = render_sharded(scene, np_film, 0, mesh, spp=spp)
-        float(jnp.sum(film))
-        dts = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            film = render_sharded(scene, np_film, 0, mesh, spp=spp)
-            float(jnp.sum(film))
-            dts.append(time.perf_counter() - t0)
-        dt = sorted(dts)[1]
-        print(json.dumps({'role': 'baseline', 'sps': spp / dt}), flush=True)
-        return
-
-    from ptina_tpu.parallel.distributed import is_distributed, global_mesh
     assert is_distributed()
     assert jax.process_count() == 2
     assert len(jax.devices()) == 2, 'expected 1 device per process'
 
-    from ptina_tpu.parallel.sharding import render_sharded
-    mesh = global_mesh()
-    np_film = np.asarray(new_film(res, res))
-
-    # correctness: the sharded render's local band must match a plain
-    # local render of the same frame
-    film = render_sharded(scene, np_film, 0, mesh, spp=1)
-    local = np.asarray(render(scene, new_film(res, res), 0, spp=1, spb=1))
+    res, spp = args.res, args.spp
+    scene = cornell_box()
+    film = render_sharded(scene, np.asarray(new_film(res, res)), 0,
+                          global_mesh(), spp=spp)
+    local = np.asarray(render(scene, new_film(res, res), 0, spp=spp, spb=1))
     band_ok = True
     for shard in film.addressable_shards:
-        sl = shard.index
-        band_ok &= bool(np.allclose(np.asarray(shard.data), local[sl],
+        band_ok &= bool(np.allclose(np.asarray(shard.data),
+                                    local[shard.index],
                                     rtol=1e-5, atol=1e-5))
-
-    # timing: spp samples through the sharded path, one sync (warm the
-    # spp-specific executable first: _render_fn caches per (mesh, spp));
-    # median of 3 trials to shed scheduler noise on the shared host
-    film = render_sharded(scene, np_film, 0, mesh, spp=spp)
-    float(jnp.sum(film))
-    dts = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        film = render_sharded(scene, np_film, 0, mesh, spp=spp)
-        float(jnp.sum(film))
-        dts.append(time.perf_counter() - t0)
-    dt = sorted(dts)[1]
     print(json.dumps({'role': f'worker{args.process_id}',
-                      'sps': spp / dt, 'band_ok': band_ok,
+                      'band_ok': band_ok,
                       'process_count': jax.process_count()}), flush=True)
 
 
-def taskset(core):
-    return ['taskset', '-c', str(core)] if os.path.exists('/usr/bin/taskset') \
-        else []
-
-
 def launch(args):
-    me = os.path.abspath(__file__)
-    base = [sys.executable, me, '--res', str(args.res), '--spp', str(args.spp)]
-
-    r = subprocess.run(taskset(0) + base + ['--baseline'],
-                       capture_output=True, text=True, timeout=900,
-                       env=worker_env({}), cwd=REPO)
-    assert r.returncode == 0, r.stderr[-2000:]
-    baseline = json.loads([l for l in r.stdout.splitlines()
-                           if l.startswith('{')][-1])
-
-    procs = []
-    for pid in range(2):
-        procs.append(subprocess.Popen(
-            taskset(pid) + base + ['--process-id', str(pid)],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            env=worker_env({}), cwd=REPO))
+    port = free_port()
+    cmd = [sys.executable, os.path.abspath(__file__), '--res', str(args.res),
+           '--spp', str(args.spp), '--port', str(port)]
+    procs = [subprocess.Popen(cmd + ['--process-id', str(pid)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=worker_env(), cwd=REPO)
+             for pid in range(2)]
     outs = []
-    for p in procs:
-        out, err = p.communicate(timeout=900)
-        assert p.returncode == 0, err[-2000:]
-        outs.append(json.loads([l for l in out.splitlines()
-                                if l.startswith('{')][-1]))
-
-    sps2 = sum(o['sps'] for o in outs) / 2  # same global frame: one rate
-    # sps here is FRAME-level (spp full-frame samples / wall time), so
-    # 2 procs each rendering half the frame on their own core would
-    # ideally halve the wall time: ideal sps_2proc = 2 * sps_1core and
-    #     efficiency = sps_2proc / (2 * sps_1core)  in (0, 1].
-    # (Round 4 reported sps_2proc / sps_1core AS the efficiency — a
-    # speedup mislabeled as an efficiency, which read as impossible
-    # superlinear scaling.)  Values > 1.05 would mean a broken
-    # measurement, so the reported number is clamped with the raw
-    # ratio preserved alongside.
-    eff_raw = sps2 / (2.0 * baseline['sps'])
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=900)
+            assert p.returncode == 0, err[-2000:]
+            outs.append(json.loads([l for l in out.splitlines()
+                                    if l.startswith('{')][-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     result = {
         'procs': 2,
         'devices_per_proc': 1,
         'res': args.res,
         'spp': args.spp,
-        'sps_1core_singleproc': round(baseline['sps'], 3),
-        'sps_2proc_global': round(sps2, 3),
-        'efficiency': round(min(eff_raw, 1.05), 3),
-        'efficiency_raw': round(eff_raw, 3),
-        'formula': 'eff = sps_2proc / (2 * sps_1core), frame-level rates, '
-                   'each process taskset-pinned to its own physical core, '
-                   'baseline on ONE core through the SAME sharded-render '
-                   'executable (1-device mesh), median of 3 trials '
-                   '(localhost DCN-free proxy)',
         'band_allclose': all(o['band_ok'] for o in outs),
         'process_count_seen': [o['process_count'] for o in outs],
-        'render_collectives': 0,
     }
-    path = args.out or os.path.join(REPO, 'SCALING_2PROC.json')
-    with open(path, 'w') as f:
-        json.dump(result, f, indent=2)
+    if args.out:
+        with open(args.out, 'w') as f:
+            json.dump(result, f, indent=2)
     print(json.dumps(result), flush=True)
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument('--res', type=int, default=128)
-    ap.add_argument('--spp', type=int, default=8)
+    ap.add_argument('--res', type=int, default=64)
+    ap.add_argument('--spp', type=int, default=2)
     ap.add_argument('--process-id', type=int, default=None)
-    ap.add_argument('--baseline', action='store_true')
-    ap.add_argument('--out', default=None, help='result JSON path '
-                    '(default: SCALING_2PROC.json in the repo; the test '
-                    'suite points this at a temp file so a loaded-host '
-                    'run cannot overwrite the committed artifact)')
+    ap.add_argument('--port', type=int, default=None)
+    ap.add_argument('--out', default=None, help='also write the result '
+                    'JSON to this path')
     args = ap.parse_args()
-    if args.baseline or args.process_id is not None:
+    if args.process_id is not None:
         run_worker(args)
     else:
         launch(args)

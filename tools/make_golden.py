@@ -28,9 +28,8 @@ OUT = os.path.join(os.path.dirname(__file__), '..', 'tests', 'golden')
 def main():
     import jax
     jax.config.update('jax_platforms', 'cpu')
-    jax.config.update('jax_compilation_cache_dir', '/tmp/ptina_jax_cache')
-    jax.config.update('jax_persistent_cache_min_compile_time_secs', 0.3)
-    jax.config.update('jax_persistent_cache_enable_xla_caches', 'all')
+    from ptina_tpu.utils.cache import setup_compile_cache
+    setup_compile_cache()
     from ptina_tpu.scenes import cornell_box, cornell_monkey
     from ptina_tpu.film import new_film, film_to_image
     from ptina_tpu.engine.path import render
